@@ -1,14 +1,18 @@
 # Convenience driver — UX parity with the reference Makefile targets
 # (reference Makefile:84-173: test / test-mpi / test-correctness /
 # run-benchmark / generate-data / charts / clean / help), adapted to the
-# TPU-native framework. All real logic lives in the Python package.
+# JAX framework. All real logic lives in the Python package.
 
 PY ?= python
 
-.PHONY: test test-correctness test-parallel test-distributed bench bench-all data charts clean help weak-scaling bench-full
+.PHONY: test test-gpu test-correctness test-parallel test-distributed bench bench-all data charts clean help weak-scaling bench-full
 
 test:
 	$(PY) -m pytest tests/ -q
+
+# Tests that need the card (marker `gpu`); they skip without one.
+test-gpu:
+	SA_TEST_PLATFORM=gpu $(PY) -m pytest tests/test_gpu.py -q -m gpu
 
 # Golden LRS answers (reference Makefile:131-138): banana->ana,
 # mississippi->issi, abcabcabc->abcabc.
@@ -23,11 +27,11 @@ test-parallel:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 	  $(PY) -m pytest tests/test_parallel.py -q
 
-# REAL multi-process run: 2 OS workers over jax.distributed on the
+# REAL multi-process run: 2 CPU workers over jax.distributed on the
 # banana fixture — the exact launch shape of the reference's
 # `make test-mpi` (mpirun -np 4 ./bin/main_mpi test_data/banana.txt).
 test-distributed: data
-	$(PY) -m hpc_suffix_array_tpu.cli test_data/banana.txt --spawn 2 \
+	SA_PLATFORM=cpu $(PY) -m hpc_suffix_array_tpu.cli test_data/banana.txt --spawn 2 \
 	  | grep -q "MPI_PROCESSES:2"
 	@echo "distributed CLI: OK"
 
@@ -52,9 +56,9 @@ clean:
 	rm -f hpc_suffix_array_tpu/native/_native_*.so
 
 help:
-	@echo "targets: test test-correctness test-parallel test-distributed bench bench-all data charts clean"
+	@echo "targets: test test-gpu test-correctness test-parallel test-distributed bench bench-all data charts clean"
 
-# Weak-scaling proxy sweep on the virtual CPU mesh (commits evidence
+# Weak-scaling proxy sweep on the virtual CPU mesh (writes evidence
 # under results/weak_scaling/ — see BASELINE.md for the metric).
 weak-scaling:
 	python -m hpc_suffix_array_tpu.bench.weak_scaling

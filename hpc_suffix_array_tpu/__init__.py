@@ -1,6 +1,6 @@
-"""TPU-native suffix-array / string-indexing framework.
+"""Suffix-array / string-indexing framework for GPUs, in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
+A JAX/XLA implementation of the capabilities of the reference
 C/MPI/CUDA project ``a-rtemis99/hpc_suffix_array`` (see SURVEY.md): Manber-Myers
 prefix-doubling suffix-array construction with early termination, LCP array,
 longest-repeated-substring extraction, self-validation, dataset generation,
@@ -16,9 +16,8 @@ program: the same jitted doubling driver runs on one chip or a multi-device
 from hpc_suffix_array_tpu.utils.hostmem import (
     disable_hugepage_madvise, keep_host_memory_hot)
 
-# VM-class host-memory workarounds (utils/hostmem.py): THP faults are
-# ~60x slower than base pages here, and memory released to the kernel
-# is unbacked by the hypervisor (~840 us to re-fault each 4 KiB page).
+# Host-memory workarounds from an earlier VM host (utils/hostmem.py), to
+# be re-justified on the GPU host (ROADMAP D2).
 disable_hugepage_madvise()
 keep_host_memory_hot()
 

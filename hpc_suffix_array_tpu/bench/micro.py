@@ -15,6 +15,7 @@ import pathlib
 from hpc_suffix_array_tpu.bench.timing import BenchmarkResult, run_benchmark
 from hpc_suffix_array_tpu.datasets.generate import (
     generate_random_text, generate_repetitive_text)
+from hpc_suffix_array_tpu.utils.runtime import platform_label
 
 # reference main_benchmark.c:9-11
 SIZES = (1_000, 5_000, 10_000, 50_000, 100_000, 500_000, 1_000_000)
@@ -30,12 +31,12 @@ CSV_HEADER = ["implementation", "input_type", "string_length", "total_time",
               "compile_time"]
 
 
-def run_micro_benchmark(out_csv="results/csv/benchmark_results_tpu.csv",
+def run_micro_benchmark(out_csv="results/csv/benchmark_results.csv",
                         sizes=SIZES, reps: int = REPS, mesh=None,
                         input_types=("random", "repetitive"),
                         verbose: bool = True) -> list[BenchmarkResult]:
     """Run the sweep; returns results and writes the reference-schema CSV."""
-    impl = "tpu" if mesh is None else f"tpu_sharded_{mesh.devices.size}"
+    impl = platform_label(None if mesh is None else mesh.devices.size)
     gens = {"random": generate_random_text,
             "repetitive": generate_repetitive_text}
     results = []

@@ -1,4 +1,4 @@
-"""Command-line entry point: the TPU-native `sa-cli`.
+"""Command-line entry point: `sa-cli`.
 
 UX parity with the reference CLIs while collapsing both into one program:
 
@@ -133,8 +133,11 @@ def run(text: np.ndarray, filename: str, backend: str, n_devices: int | None,
     if n <= 100:
         _detail_dump(text, np.asarray(sa), np.asarray(lcp), out)
 
+    from hpc_suffix_array_tpu.utils.runtime import platform_label
+
     results = {
-        "implementation": "tpu" if backend == "single" else "tpu_sharded",
+        "implementation": platform_label(
+            None if backend == "single" else n_procs),
         "filename": filename,
         "file_size": n,
         "total_time": total_time,
@@ -213,7 +216,7 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(
         prog="sa-cli",
-        description="TPU-native suffix array / LCP / LRS "
+        description="Suffix array / LCP / LRS on an accelerator "
                     "(capabilities of a-rtemis99/hpc_suffix_array)")
     p.add_argument("input",
                    help="input file path or literal string; an argument "
@@ -247,8 +250,9 @@ def main(argv=None) -> int:
                    help="host:port of the jax.distributed coordinator "
                         "for --distributed (or SA_COORDINATOR)")
     p.add_argument("--devices-per-process", type=int, default=2,
-                   help="virtual CPU devices per worker (the "
-                        "oversubscribe analog; ignored on real pods)")
+                   help="virtual CPU devices per worker under "
+                        "SA_PLATFORM=cpu (the oversubscribe analog); "
+                        "ignored on GPUs, where each worker takes one card")
     p.add_argument("--string", action="store_true",
                    help="force the argument to be a literal string")
     p.add_argument("--file", dest="force_file", action="store_true",
@@ -269,6 +273,10 @@ def main(argv=None) -> int:
 
     from hpc_suffix_array_tpu.utils.io import (
         print_first_chars, print_last_chars, read_file)
+    from hpc_suffix_array_tpu.utils.runtime import (
+        enable_compile_cache, platform_label)
+
+    enable_compile_cache()
 
     is_file = (args.force_file
                or (looks_like_file(args.input) and not args.string))
@@ -320,7 +328,7 @@ def main(argv=None) -> int:
         print(f"Error: build failed: {type(e).__name__}: {msg}",
               file=sys.stderr)
         print("\n===STRUCTURED_RESULTS===")
-        print("IMPLEMENTATION:tpu")
+        print(f"IMPLEMENTATION:{platform_label()}")
         print(f"FILENAME:{filename}")
         print(f"FILE_SIZE:{len(text)}")
         print("STATUS:FAILED")

@@ -1,4 +1,4 @@
-"""Multi-process CLI: the TPU-native ``mpirun -np P ./bin/main_mpi``.
+"""Multi-process CLI: the accelerator analog of ``mpirun -np P ./bin/main_mpi``.
 
 The reference's distributed UX is ``mpirun -np P ./bin/main_mpi file``
 (scripts/benchmark_mpi.py:59-90; src/mpi/main_mpi.c:13-116): P OS
@@ -21,12 +21,13 @@ module gives ``sa-cli`` the same two surfaces:
     port, streams process 0's output, and propagates the worst exit
     code.
 
-On this machine multi-chip hardware is unavailable, so workers default
-to the CPU backend with ``--devices-per-process`` virtual devices each
-(the analog of the reference harness's ``--oversubscribe``,
-benchmark_mpi.py:61); on a real TPU pod slice the same worker runs with
-SA_PLATFORM unset and the per-host chips picked up by
-``jax.distributed``.
+Workers run on the platform JAX finds. On GPUs the launcher gives
+worker ``i`` only card ``i`` (``CUDA_VISIBLE_DEVICES``): one process per
+card, since a JAX process reserves most of the memory of every card it
+can see. ``SA_PLATFORM=cpu`` runs the workers on the CPU backend instead,
+with ``--devices-per-process`` virtual devices each (the analog of the
+reference harness's ``--oversubscribe``, benchmark_mpi.py:61); the tests
+and the Makefile pass it explicitly.
 """
 
 from __future__ import annotations
@@ -44,6 +45,16 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def worker_env(i: int, environ=None) -> dict:
+    """Environment of spawned worker ``i``: the launcher's own, plus
+    ``CUDA_VISIBLE_DEVICES=i`` unless the workers run on the CPU
+    (``SA_PLATFORM=cpu``). The platform itself is never forced."""
+    env = dict(os.environ if environ is None else environ)
+    if env.get("SA_PLATFORM", "") != "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = str(i)
+    return env
 
 
 def spawn(args, argv_rest: list[str]) -> int:
@@ -64,10 +75,8 @@ def spawn(args, argv_rest: list[str]) -> int:
             cmd.append("--string")
         if args.force_file:
             cmd.append("--file")
-        env = dict(os.environ)
-        env.setdefault("SA_PLATFORM", "cpu")
         procs.append(subprocess.Popen(
-            cmd, env=env,
+            cmd, env=worker_env(i),
             stdout=None if i == 0 else subprocess.DEVNULL,
             stderr=None if i == 0 else subprocess.STDOUT))
     rc = 0
@@ -95,14 +104,15 @@ def run_distributed(args) -> int:
               file=sys.stderr)
         return 2
 
-    # Backend setup must precede first jax backend use. CPU workers get
-    # --devices-per-process virtual devices (tests/multihost_worker.py
-    # pattern); a real pod slice leaves SA_PLATFORM unset.
+    # Backend setup must precede first jax backend use. CPU workers
+    # (SA_PLATFORM=cpu) get --devices-per-process virtual devices
+    # (tests/multihost_worker.py pattern); elsewhere the worker takes
+    # the platform JAX finds and the devices its launcher left visible.
     import re as _re
 
-    plat = os.environ.get("SA_PLATFORM", "cpu")
-    dpp = int(args.devices_per_process)
+    plat = os.environ.get("SA_PLATFORM")
     if plat == "cpu":
+        dpp = int(args.devices_per_process)
         flags = _re.sub(r"--xla_force_host_platform_device_count=\d+", "",
                         os.environ.get("XLA_FLAGS", ""))
         os.environ["XLA_FLAGS"] = (
@@ -111,9 +121,14 @@ def run_distributed(args) -> int:
 
     import jax
 
-    jax.config.update("jax_platforms", plat)
+    if plat:
+        jax.config.update("jax_platforms", plat)
     jax.distributed.initialize(coordinator_address=coord,
                                num_processes=P, process_id=pid)
+    from hpc_suffix_array_tpu.utils.runtime import (
+        enable_compile_cache, platform_label)
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from jax import lax
@@ -268,7 +283,7 @@ def run_distributed(args) -> int:
     print(f"Total execution time: {total_time:.6f} seconds", file=out)
 
     results = {
-        "implementation": "tpu_sharded_mp",
+        "implementation": platform_label(P),
         "filename": filename,
         "file_size": n,
         "total_time": total_time,

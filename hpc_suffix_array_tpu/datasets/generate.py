@@ -6,7 +6,7 @@ DNA ACGT (:25-28), the standard size ladder (:53-84), the small canonical
 fixtures (:86-102), MD5 ``.meta`` sidecars (:30-51), and idempotent skips
 (:64-66,71-72).
 
-TPU-first difference: generation is vectorized numpy (chunked to bound host
+Difference: generation is vectorized numpy (chunked to bound host
 RSS), not a Python string-concat loop — a 500 MB corpus generates in
 seconds, and the arrays can feed `jax.device_put` directly.
 """

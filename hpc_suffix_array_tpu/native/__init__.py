@@ -14,6 +14,7 @@ import os
 import pathlib
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 
@@ -21,6 +22,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE / "sais.c"
 _lib = None
 _tried = False
+_lock = threading.Lock()
 
 
 def _build() -> ctypes.CDLL | None:
@@ -46,23 +48,24 @@ def _build() -> ctypes.CDLL | None:
     lib = ctypes.CDLL(str(so))
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.tpu_sa_build.argtypes = [u8p, ctypes.c_int32, i32p]
-    lib.tpu_sa_build.restype = ctypes.c_int
-    lib.tpu_lcp_kasai.argtypes = [u8p, i32p, ctypes.c_int32, i32p]
-    lib.tpu_lcp_kasai.restype = ctypes.c_int
-    lib.tpu_sa_validate.argtypes = [u8p, i32p, ctypes.c_int32]
-    lib.tpu_sa_validate.restype = ctypes.c_int
+    lib.native_sa_build.argtypes = [u8p, ctypes.c_int32, i32p]
+    lib.native_sa_build.restype = ctypes.c_int
+    lib.native_lcp_kasai.argtypes = [u8p, i32p, ctypes.c_int32, i32p]
+    lib.native_lcp_kasai.restype = ctypes.c_int
+    lib.native_sa_validate.argtypes = [u8p, i32p, ctypes.c_int32]
+    lib.native_sa_validate.restype = ctypes.c_int
     return lib
 
 
 def _get():
     global _lib, _tried
-    if not _tried:
-        _tried = True
-        try:
-            _lib = _build()
-        except Exception:
-            _lib = None
+    with _lock:                 # first use may race from oracle threads
+        if not _tried:
+            _tried = True
+            try:
+                _lib = _build()
+            except Exception:
+                _lib = None
     return _lib
 
 
@@ -86,8 +89,8 @@ def sa_build(text) -> np.ndarray:
     arr = np.ascontiguousarray(np.asarray(text, np.uint8))
     n = int(arr.shape[0])
     sa = np.empty(n, np.int32)
-    if n and lib.tpu_sa_build(_u8(arr), n, _i32(sa)) != 0:
-        raise MemoryError("tpu_sa_build failed")
+    if n and lib.native_sa_build(_u8(arr), n, _i32(sa)) != 0:
+        raise MemoryError("native_sa_build failed")
     return sa
 
 
@@ -100,8 +103,8 @@ def lcp_kasai(text, sa) -> np.ndarray:
     sa = np.ascontiguousarray(np.asarray(sa, np.int32))
     n = int(arr.shape[0])
     lcp = np.zeros(n, np.int32)
-    if n and lib.tpu_lcp_kasai(_u8(arr), _i32(sa), n, _i32(lcp)) != 0:
-        raise MemoryError("tpu_lcp_kasai failed")
+    if n and lib.native_lcp_kasai(_u8(arr), _i32(sa), n, _i32(lcp)) != 0:
+        raise MemoryError("native_lcp_kasai failed")
     return lcp
 
 
@@ -113,7 +116,7 @@ def sa_validate(text, sa) -> bool:
     arr = np.ascontiguousarray(np.asarray(text, np.uint8))
     sa = np.ascontiguousarray(np.asarray(sa, np.int32))
     n = int(arr.shape[0])
-    rc = lib.tpu_sa_validate(_u8(arr), _i32(sa), n)
+    rc = lib.native_sa_validate(_u8(arr), _i32(sa), n)
     if rc < 0:
-        raise MemoryError("tpu_sa_validate failed")
+        raise MemoryError("native_sa_validate failed")
     return bool(rc)

@@ -6,9 +6,9 @@
  * induce-S passes, LMS renaming) as published in "Two Efficient
  * Algorithms for Linear Time Suffix Array Construction" (2011) - the
  * standard formulation any SA-IS implementation shares; it is not
- * derived from /root/reference, which contains no SA-IS.
+ * derived from the reference, which contains no SA-IS.
  * These are the native runtime pieces
- * around the TPU compute path: a fast trusted oracle for tests and
+ * around the device compute path: a fast trusted oracle for tests and
  * validation of large corpora, and the host-side baseline the benchmark
  * harness can compare against.
  *
@@ -139,7 +139,7 @@ static int sais(const int32_t *s, int32_t *sa, int32_t n, int32_t K) {
 }
 
 /* Public: suffix array of a byte string (no sentinel in the input). */
-int tpu_sa_build(const uint8_t *text, int32_t n, int32_t *sa_out) {
+int native_sa_build(const uint8_t *text, int32_t n, int32_t *sa_out) {
     if (n <= 0) return 0;
     if (n == 1) { sa_out[0] = 0; return 0; }
     int32_t *s = (int32_t *)malloc(sizeof(int32_t) * (size_t)(n + 1));
@@ -155,7 +155,7 @@ int tpu_sa_build(const uint8_t *text, int32_t n, int32_t *sa_out) {
 }
 
 /* Kasai O(n) LCP: lcp[j] = LCP(suffix sa[j-1], suffix sa[j]), lcp[0]=0. */
-int tpu_lcp_kasai(const uint8_t *text, const int32_t *sa, int32_t n,
+int native_lcp_kasai(const uint8_t *text, const int32_t *sa, int32_t n,
                   int32_t *lcp) {
     if (n <= 0) return 0;
     int32_t *rank = (int32_t *)malloc(sizeof(int32_t) * (size_t)n);
@@ -179,7 +179,7 @@ int tpu_lcp_kasai(const uint8_t *text, const int32_t *sa, int32_t n,
 
 /* O(n) validator: permutation + adjacent-order check via ISA.
  * Returns 1 if valid, 0 if not, -1 on allocation failure. */
-int tpu_sa_validate(const uint8_t *text, const int32_t *sa, int32_t n) {
+int native_sa_validate(const uint8_t *text, const int32_t *sa, int32_t n) {
     if (n <= 0) return 1;
     int32_t *isa = (int32_t *)malloc(sizeof(int32_t) * (size_t)n);
     if (!isa) return -1;

@@ -1,10 +1,9 @@
 """Device-level compute ops: sorts, scans, shifts.
 
-These are the TPU-native replacements for the reference's hot native loops
-(LSD radix sort: reference src/sequential/manber_myers.c:15-48; re-rank scan:
-manber_myers.c:101-110). The default implementations use XLA's sort HLO and
-scan fusion; Pallas kernels live in hpc_suffix_array_tpu.kernels (the pack
-kernel is in the production path, the radix pass is experimental).
+These are the data-parallel replacements for the reference's hot native
+loops (LSD radix sort: reference src/sequential/manber_myers.c:15-48;
+re-rank scan: manber_myers.c:101-110), built on XLA's sort HLO and scan
+fusion.
 """
 
 from hpc_suffix_array_tpu.ops.sort import sort_by_rank_pairs

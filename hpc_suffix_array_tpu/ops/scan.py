@@ -3,17 +3,14 @@
 Replaces the reference's sequential re-rank loop
 (src/sequential/manber_myers.c:101-110) with a vectorized
 adjacent-difference + cumulative-sum scan, then a permutation back to
-suffix order. The permutation is routed per backend: on TPU a 1-key
-`lax.sort` beats the random-access scatter HLO (measured on v5e at 2^24:
-47 ms vs 111 ms net of dispatch — sorting networks stream HBM, scatters
-don't); on CPU the scatter is cheaper.
+suffix order. The permutation is one scatter: on the H100 it beat the
+1-key-sort route inside the doubling kernel on every multi-round corpus
+measured (PERF.md, PR 1), and it was already the cheaper form on the CPU.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from jax import lax
 
 
 def dense_ranks(sorted_rank: jnp.ndarray, sorted_rank_k: jnp.ndarray):
@@ -32,24 +29,10 @@ def dense_ranks(sorted_rank: jnp.ndarray, sorted_rank_k: jnp.ndarray):
 
 
 def route_to_positions(sorted_idx: jnp.ndarray, dense: jnp.ndarray):
-    """Permute dense ranks from sorted order back to suffix-position order.
-
-    Platform dispatch happens at lowering time (`lax.platform_dependent`),
-    so an array explicitly committed to a non-default backend still gets
-    the right implementation compiled in (trace-time `default_backend()`
-    checks would bake the wrong branch into cross-backend programs).
-    """
+    """Permute dense ranks from sorted order back to suffix-position order:
+    ``out[sorted_idx[j]] = dense[j]`` (``sorted_idx`` is a permutation)."""
     n = sorted_idx.shape[0]
-
-    def _scatter(si, d):
-        return jnp.zeros((n,), jnp.int32).at[si].set(d)
-
-    def _sortroute(si, d):
-        _, new_rank = lax.sort((si, d), num_keys=1)
-        return new_rank
-
-    return jax.lax.platform_dependent(
-        sorted_idx, dense, cpu=_scatter, default=_sortroute)
+    return jnp.zeros((n,), jnp.int32).at[sorted_idx].set(dense)
 
 
 def rerank_sorted(sorted_rank: jnp.ndarray, sorted_rank_k: jnp.ndarray,

@@ -1,6 +1,6 @@
 """Distributed (multi-device / multi-host) execution.
 
-TPU-native replacement for the reference MPI backend
+Sharded-array replacement for the reference MPI backend
 (src/mpi/manber_myers_mpi.c, src/mpi/main_mpi.c). Where the reference
 gathers all suffix records to rank 0 each round and re-sorts them serially
 (manber_myers_mpi.c:111-128), this package keeps every array block-sharded

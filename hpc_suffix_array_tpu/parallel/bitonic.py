@@ -1,6 +1,6 @@
 """Distributed block-bitonic sort (compare-split over a device hypercube).
 
-The TPU-native replacement for the reference's per-round "gather everything
+The sharded replacement for the reference's per-round "gather everything
 to rank 0 and qsort it there" (src/mpi/manber_myers_mpi.c:111-118). Here no
 device ever holds more than 2·(n/P) records: each compare-exchange of the
 classical bitonic sorting network on P elements is replaced by a
@@ -18,7 +18,7 @@ splitter-based partitioning). Static patterns also mean the whole doubling
 loop stays inside a single `lax.while_loop` with zero retracing.
 
 Communication per full sort: log2(P)·(log2(P)+1)/2 full-shard exchanges
-riding ICI neighbor links — vs the reference's per-round Gatherv(n) +
+riding NVLink neighbor links — vs the reference's per-round Gatherv(n) +
 Bcast(n) through one root NIC.
 """
 

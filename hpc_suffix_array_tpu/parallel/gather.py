@@ -4,7 +4,7 @@ The reference sidesteps distributed random access entirely by replicating
 whole arrays on every rank (src/mpi/main_mpi.c:43-51,
 src/mpi/manber_myers_mpi.c:136). Here neither values nor indices are
 replicated: value blocks rotate around the mesh ring (P-1 statically
-patterned `ppermute` steps, riding neighbor ICI links) and every shard
+patterned `ppermute` steps, riding neighbor NVLink links) and every shard
 serves its local requests as each block visits — no shard ever holds more
 than 2 blocks, and the pattern is static so the primitive composes with
 `lax.while_loop` / nested use inside shard_map.

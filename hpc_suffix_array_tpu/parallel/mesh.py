@@ -1,7 +1,7 @@
 """Device-mesh construction and sharding helpers.
 
 The reference's process topology is a flat `MPI_COMM_WORLD`
-(src/mpi/main_mpi.c:15-18). The TPU-native analog is a 1-D
+(src/mpi/main_mpi.c:15-18). The JAX analog is a 1-D
 `jax.sharding.Mesh` over the sequence axis: the text, rank and suffix-index
 arrays are block-sharded along `SEQ_AXIS`, which is literal sequence
 parallelism — the thing the reference never achieves (it replicates the

@@ -2,23 +2,24 @@
 
 The reference's multi-node story is `mpirun -np P ./bin/main_mpi`
 (scripts/benchmark_mpi.py:61) with OpenMPI as the process launcher and
-communication backend. The TPU-native equivalent splits those roles:
+communication backend. The JAX equivalent splits those roles:
 
   * process group: `jax.distributed.initialize()` — one Python process per
     host, coordinated through the JAX distributed service (the launcher is
     whatever starts the processes: GKE, xmanager, mpirun, ssh loops);
-  * communication: XLA collectives over ICI within a slice and DCN across
-    slices, generated from the same `shard_map` program that runs on one
-    host — none of the framework's algorithm code changes.
+  * communication: XLA collectives (NCCL between GPUs: NVLink within a
+    host, the network across hosts), generated from the same `shard_map`
+    program that runs on one host — none of the framework's algorithm
+    code changes.
 
-On a multi-host slice every host sees only its local devices;
+With several processes each sees only its local devices;
 `make_global_mesh()` builds the mesh over *all* devices and
 `host_local_shard()` computes which block of the text this host should
 feed into `jax.make_array_from_process_local_data`.
 
 This module is exercised in single-process form by the test suite (a
-process group of one) and validated for N processes by the driver's
-multi-chip dry run; real multi-host runs need a pod slice.
+process group of one), for 2 CPU processes by tests/test_multihost.py,
+and for 4 processes with one GPU each by `chip_smoke.py --four`.
 """
 
 from __future__ import annotations

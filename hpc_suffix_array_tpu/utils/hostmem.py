@@ -1,17 +1,13 @@
-"""Host-memory platform workarounds.
+"""Host-memory workarounds, to be re-justified on the GPU host (ROADMAP D2).
 
-This VM image (Linux 6.18 fc microVM, snapshot-restored memory) serves
-transparent-hugepage faults through a userspace pager at ~250 ms per
-2 MB page — ~60x SLOWER per byte than base 4 KiB faults (measured
-2026-08-17: 1 GiB first-touch = 2.2 s base vs 131 s with
-MADV_HUGEPAGE). NumPy madvises hugepages for every large allocation by
-default on Linux, which turned every corpus generation / staging buffer
-into minutes of kernel time (measured: 0.5 GiB ``rng.integers`` = 134 s
-before, 1.3 s after).
+An earlier VM host (a snapshot-restored microVM) served
+transparent-hugepage faults through a userspace pager ~60x slower per
+byte than base 4 KiB faults, and NumPy madvises hugepages for every large
+allocation by default on Linux, which turned every corpus generation /
+staging buffer into minutes of kernel time there.
 
-``NUMPY_MADVISE_HUGEPAGE=0`` fixes it, but the session pre-imports
-numpy at interpreter startup (PYTHONPATH sitecustomize), so entry
-points can no longer set the env var in time — use numpy's runtime
+``NUMPY_MADVISE_HUGEPAGE=0`` fixes it when set before numpy is imported;
+an entry point that runs after numpy's import uses numpy's runtime
 setter instead. Idempotent, safe on any platform (falls back silently
 when the private hook moves).
 """

@@ -2,7 +2,7 @@
 
 Parity with the reference I/O utility library (src/common/utils.c:6-80):
 whole-file binary read with size probe, file write, head/tail previews.
-TPU-first difference: reads are zero-copy ``np.memmap`` views, so reading
+Difference: reads are zero-copy ``np.memmap`` views, so reading
 a 1 GiB corpus costs no host RAM up front (the reference mallocs the whole
 file, utils.c:25-36, then copies it again per rank over MPI_Bcast,
 main_mpi.c:43-51). One padded host copy is still made later by

@@ -40,7 +40,7 @@ def generate_performance_charts(results_csv, out_dir="results/charts"):
         return []
 
     fig, axes = plt.subplots(2, 2, figsize=(14, 10))
-    fig.suptitle("Suffix Array Performance Analysis (TPU-native)")
+    fig.suptitle("Suffix Array Performance Analysis")
 
     ax = axes[0, 0]
     ax.loglog(df.size_bytes, df.sa_time, "o-", label="measured SA build")
@@ -149,9 +149,9 @@ def generate_comparative_charts(results_dir="results/benchmarks",
     frames = []
     # sequential_results_cpu.csv: the CPU-mesh sweep's own single-device
     # baseline (bench/mesh_sweep.py) — a separate backend line, never a
-    # replacement for the TPU artifact. _twin: the device-born corpus
-    # sweep (backend label tpu_twin) — the perf-meaningful line next to
-    # the staging-dominated file rows.
+    # replacement for the device rows. _twin: the device-born corpus
+    # sweep (backend label <platform>_twin) — the build without its
+    # staging, next to the file rows.
     for name in ("sequential_results.csv", "sequential_results_twin.csv",
                  "sequential_results_cpu.csv", "parallel_results.csv"):
         p = rd / name
@@ -162,7 +162,7 @@ def generate_comparative_charts(results_dir="results/benchmarks",
     df = pd.concat(frames, ignore_index=True).sort_values("size_bytes")
 
     fig, axes = plt.subplots(2, 2, figsize=(14, 10))
-    fig.suptitle("Backend Comparison (TPU-native)")
+    fig.suptitle("Backend Comparison")
 
     for backend, g in df.groupby("backend"):
         axes[0, 0].loglog(g.size_bytes, g.sa_time, "o-", label=backend)

@@ -38,7 +38,7 @@ def generate_statistics_report(results_csv, out_path="results/charts/"
     out = pathlib.Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     lines = [
-        "SUFFIX ARRAY PERFORMANCE STATISTICS (TPU-native)",
+        "SUFFIX ARRAY PERFORMANCE STATISTICS",
         "=" * 60,
         f"generated: {datetime.now():%Y-%m-%d %H:%M:%S}",
         f"platform:  {platform.platform()}",
@@ -78,7 +78,7 @@ def generate_multi_backend_report(results_dir="results/benchmarks",
     out = pathlib.Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     lines = [
-        "MULTI-BACKEND COMPARISON REPORT (TPU-native)",
+        "MULTI-BACKEND COMPARISON REPORT",
         "=" * 60,
         f"generated: {datetime.now():%Y-%m-%d %H:%M:%S}",
         "",

@@ -6,7 +6,7 @@ distributed service, feeds ONLY its host-local block of the text via
 runs the sharded build over the global mesh. Local output shards are
 checked against the SA-IS oracle slice.
 
-This is the TPU-native analog of the reference's mpirun launch
+This is the JAX analog of the reference's mpirun launch
 (scripts/benchmark_mpi.py:59-90): real process boundary, real
 coordinator, per-host data feed. Launched by tests/test_multihost.py.
 

@@ -220,7 +220,7 @@ def test_dispatch_threshold(rng, monkeypatch):
 
 def test_dispatch_falls_back_to_doubling(rng, monkeypatch):
     """Texts the MSD path declines (NotImplementedError) fall back to
-    the doubling kernel below its HBM cap — the routed build must still
+    the doubling kernel below its memory cap — the routed build must still
     return the exact SA."""
     import hpc_suffix_array_tpu.core.bigsort as bigsort
     from hpc_suffix_array_tpu.core.suffix_array import build_suffix_array

@@ -6,6 +6,7 @@ block feeds through build_suffix_array_sharded_big_mp) via the CLI's
 the reference harness parses (scripts/benchmark_mpi.py:31-49).
 """
 
+import os
 import re
 import subprocess
 import sys
@@ -29,7 +30,8 @@ def test_spawn_two_process_cli(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "hpc_suffix_array_tpu.cli", str(f),
          "--spawn", "2"],
-        capture_output=True, text=True, timeout=600)
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "SA_PLATFORM": "cpu"})
     assert out.returncode == 0, out.stdout + out.stderr
 
     # The reference harness's regex contract (benchmark_mpi.py:31-49).

@@ -209,7 +209,7 @@ def test_structured_results_parser(capsys):
     rec = parse_structured_results(out)
     assert rec["dialect"] == "sequential"
     assert rec["file_size"] == 6
-    assert rec["implementation"] == "tpu"
+    assert rec["implementation"] == "cpu"
     assert rec["sa_time"] > 0
     both = parse_all_structured_results(out)
     assert len(both) == 2

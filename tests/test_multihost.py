@@ -2,7 +2,7 @@
 
 The reference exercises its distributed path by actually spawning
 processes (scripts/benchmark_mpi.py:59-90, mpirun --oversubscribe); this
-is the TPU-native equivalent — two OS processes, a real
+is the JAX equivalent — two OS processes, a real
 `jax.distributed` coordinator, per-host sharded data feed, byte-exact
 output (see tests/multihost_worker.py for what each process does).
 """

@@ -462,8 +462,7 @@ def test_mp_matches_host_api(mesh8, rng):
 
 def test_wide_auto_enable_boundary():
     """The auto-enable predicate fires exactly where a padded index
-    could leave int32 (r5; executed at real scale in
-    experiments/wide_real.py — results/wide_index/)."""
+    could leave int32 (r5; executed at 2^29 on the CPU mesh)."""
     from hpc_suffix_array_tpu.parallel.bigsort import wide_auto
 
     assert not wide_auto((1 << 31) - 2)

@@ -3,8 +3,8 @@
 Pins the r4 crossover contract without touching a device: direct is
 preferred up to SA_DIRECT_CROSS, the fine-geometry MSD above it for
 non-chain text, and chain-class (globally periodic) texts stay direct
-up to the feasibility cap (measured table in the prefer_direct
-docstring; experiments/routing_msd_small.py + routing_direct.py).
+up to the feasibility cap (the prefer_direct docstring says where
+the crossover came from).
 """
 
 import numpy as np

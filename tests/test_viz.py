@@ -21,7 +21,7 @@ def seq_csv(tmp_path):
         "file": [f"f{i}.txt" for i in range(len(sizes))],
         "size_bytes": sizes,
         "size_mb": sizes / (1 << 20),
-        "backend": "tpu",
+        "backend": "gpu",
         "processes": 1,
         "time_seconds": sa + lcp + lrs,
         "throughput_mb_s": sizes / (1 << 20) / (sa + lcp + lrs),
